@@ -2,7 +2,7 @@
 
 The reference has no multi-device story; this is the scale-out design tested
 the way CI must test it: XLA's virtual-device simulation, so the partition /
-all_to_all / merge logic runs without TPU hardware.
+all_to_all / merge logic runs without several GPUs.
 """
 
 import jax
@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuradixsort_tpu.config import PAD_KEY, EngineConfig
-from gpuradixsort_tpu.core.table import pad_to_tile, round_up
-from gpuradixsort_tpu.parallel.dist_sort import dist_sort_pairs, gather_sorted
-from gpuradixsort_tpu.parallel.mesh import make_row_mesh
+from gpuradixsort.config import PAD_KEY, EngineConfig
+from gpuradixsort.core.table import pad_to_tile, round_up
+from gpuradixsort.parallel.dist_sort import dist_sort_pairs, gather_sorted
+from gpuradixsort.parallel.mesh import make_row_mesh
 
 CFG = EngineConfig()
 
@@ -27,7 +27,7 @@ def _pad_for_mesh(keys: np.ndarray, num_shards: int) -> jnp.ndarray:
 
 
 def _check(keys: np.ndarray, num_shards: int, **kw):
-    from gpuradixsort_tpu.parallel.mesh import shard_rows
+    from gpuradixsort.parallel.mesh import shard_rows
 
     n = keys.shape[0]
     mesh = make_row_mesh(num_shards)
@@ -121,8 +121,8 @@ def test_dist_sort_all_equal_untuned():
 
 
 def test_dist_matches_single_chip(rng):
-    from gpuradixsort_tpu.core.table import make_key_column
-    from gpuradixsort_tpu.ops.sort import sort_keys
+    from gpuradixsort.core.table import make_key_column
+    from gpuradixsort.ops.sort import sort_keys
 
     keys = rng.integers(0, 2**20, size=40_000, dtype=np.uint32)
     single = sort_keys(make_key_column(keys, CFG), CFG).to_numpy()

@@ -4,15 +4,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuradixsort_tpu.config import PAD_KEY, EngineConfig
-from gpuradixsort_tpu.core.table import pad_to_tile, round_up
-from gpuradixsort_tpu.parallel.dist_ops import (
+from gpuradixsort.config import PAD_KEY, EngineConfig
+from gpuradixsort.core.table import pad_to_tile, round_up
+from gpuradixsort.parallel.dist_ops import (
     dist_group_by_aggregate,
     dist_join_inner,
     gather_groups,
     gather_join,
 )
-from gpuradixsort_tpu.parallel.mesh import make_row_mesh
+from gpuradixsort.parallel.mesh import make_row_mesh
 
 CFG = EngineConfig()
 

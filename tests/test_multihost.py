@@ -1,18 +1,18 @@
 """Multi-host runtime pieces, exercised single-process on the virtual mesh.
 
-A real pod slice cannot run in CI; what can is everything around the
-`jax.distributed.initialize` call: the no-op path, the (host, chip) mesh
-construction, and that the flattened pod mesh drives the distributed sort
+A real multi-host cluster cannot run in CI; what can is everything around
+the `jax.distributed.initialize` call: the no-op path, the (host, device)
+mesh construction, and that the flattened mesh drives the distributed sort
 identically to the plain row mesh.
 """
 
 import jax
 import numpy as np
 
-from gpuradixsort_tpu.config import EngineConfig
-from gpuradixsort_tpu.parallel import multihost
-from gpuradixsort_tpu.parallel.dist_sort import dist_sort_pairs, gather_sorted
-from gpuradixsort_tpu.parallel.mesh import ROW_AXIS
+from gpuradixsort.config import EngineConfig
+from gpuradixsort.parallel import multihost
+from gpuradixsort.parallel.dist_sort import dist_sort_pairs, gather_sorted
+from gpuradixsort.parallel.mesh import ROW_AXIS
 
 CFG = EngineConfig()
 
@@ -22,7 +22,6 @@ def test_initialize_single_process_is_noop(monkeypatch):
         "JAX_COORDINATOR_ADDRESS",
         "JAX_NUM_PROCESSES",
         "JAX_PROCESS_ID",
-        "TPU_WORKER_HOSTNAMES",
     ):
         monkeypatch.delenv(var, raising=False)
     assert multihost.initialize() is False

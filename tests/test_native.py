@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from gpuradixsort_tpu.utils import native
+from gpuradixsort.utils import native
 
 
 def test_shuffled_permutation_roundtrip():

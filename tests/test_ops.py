@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuradixsort_tpu.config import EngineConfig
-from gpuradixsort_tpu.core.table import make_key_column, table_from_arrays
-from gpuradixsort_tpu.ops.aggregate import group_by_aggregate
-from gpuradixsort_tpu.ops.filter import filter_table
-from gpuradixsort_tpu.ops.join import join
+from gpuradixsort.config import EngineConfig
+from gpuradixsort.core.table import make_key_column, table_from_arrays
+from gpuradixsort.ops.aggregate import group_by_aggregate
+from gpuradixsort.ops.filter import filter_table
+from gpuradixsort.ops.join import join
 
 CFG = EngineConfig()
 
@@ -118,13 +118,30 @@ def test_join_duplicate_build_detection(rng):
 
 def test_filter_then_sort_pipeline(rng):
     # Config 3 analog: predicate pushdown + sort on the survivors.
-    from gpuradixsort_tpu.ops.sort import sort_table
+    from gpuradixsort.ops.sort import sort_table
 
     tbl, keys, vals = _table(rng, 3000, hi=1 << 16)
     sel = filter_table(tbl, lambda t: (t["key"].data & 1) == 0, CFG)
     out = sort_table(sel.to_table(), "key", CFG)
     expect = np.sort(keys[keys % 2 == 0])
     np.testing.assert_array_equal(out["key"].to_numpy(), expect)
+
+
+def test_sort_after_selective_filter(rng):
+    # A filter keeps its input's buffer; when few rows survive, that buffer
+    # is several blocks longer than the live rows rounded up to one block,
+    # and the sort's index column must still match it.
+    from gpuradixsort.ops.sort import sort_pairs, sort_table
+
+    tbl, keys, vals = _table(rng, 5 * CFG.block, hi=1 << 20)
+    sel = filter_table(tbl, lambda t: t["key"].data < 1000, CFG).to_table()
+    mask = keys < 1000
+    out = sort_table(sel, "key", CFG)
+    order = np.argsort(keys[mask], kind="stable")
+    np.testing.assert_array_equal(out["key"].to_numpy(), keys[mask][order])
+    np.testing.assert_array_equal(out["val"].to_numpy(), vals[mask][order])
+    _, perm = sort_pairs(sel["key"], CFG, method="radix")
+    np.testing.assert_array_equal(perm.to_numpy(), order.astype(np.uint32))
 
 
 class TestAggregateNumerics:
@@ -202,7 +219,7 @@ class TestJoinExpand:
         return rows
 
     def test_duplicates_and_misses(self, rng):
-        from gpuradixsort_tpu.ops.join import join_expand
+        from gpuradixsort.ops.join import join_expand
 
         n_p, n_b = 500, 300
         pk = rng.integers(0, 50, n_p, dtype=np.uint32)
@@ -229,7 +246,7 @@ class TestJoinExpand:
         assert got == [(int(a), int(b), int(c)) for a, b, c in want]
 
     def test_overflow_flag(self, rng):
-        from gpuradixsort_tpu.ops.join import join_expand
+        from gpuradixsort.ops.join import join_expand
 
         n = 200
         pk = np.full(n, 7, dtype=np.uint32)
@@ -245,7 +262,7 @@ class TestJoinExpand:
             res.to_table()
 
     def test_unique_build_matches_plain_join(self, rng):
-        from gpuradixsort_tpu.ops.join import join_expand
+        from gpuradixsort.ops.join import join_expand
 
         n_p, n_b = 400, 100
         bk = rng.permutation(1000)[:n_b].astype(np.uint32)  # unique

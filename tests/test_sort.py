@@ -7,13 +7,18 @@ must be exactly arange), the 16-element hand-traceable fixture of
 random, presorted, reverse, all-equal, skewed, and duplicate-heavy keys.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuradixsort_tpu.config import EngineConfig, REFERENCE_PARITY_CONFIG
-from gpuradixsort_tpu.core.table import make_key_column, table_from_arrays
-from gpuradixsort_tpu.ops.sort import sort_keys, sort_pairs, sort_table
+from gpuradixsort.config import EngineConfig, REFERENCE_PARITY_CONFIG
+from gpuradixsort.core.table import make_key_column, table_from_arrays
+from gpuradixsort.ops.sort import (
+    METHODS,
+    resolve_method,
+    sort_keys,
+    sort_pairs,
+    sort_table,
+)
 
 CFG = EngineConfig()
 
@@ -82,8 +87,8 @@ def test_one_bit_reference_parity_mode(rng):
     n = 3000
     keys = rng.integers(0, 2**32, size=n, dtype=np.uint32)
     a = sort_keys(make_key_column(keys, REFERENCE_PARITY_CONFIG),
-                  REFERENCE_PARITY_CONFIG)
-    b = sort_keys(make_key_column(keys, CFG), CFG)
+                  REFERENCE_PARITY_CONFIG, method="radix")
+    b = sort_keys(make_key_column(keys, CFG), CFG, method="radix")
     np.testing.assert_array_equal(a.to_numpy(), b.to_numpy())
     np.testing.assert_array_equal(a.to_numpy(), np.sort(keys))
 
@@ -94,7 +99,7 @@ def test_radix_widths_agree(rng):
     expected = np.sort(keys)
     for bits in (1, 2, 4, 8):
         cfg = EngineConfig(radix_bits=bits)
-        out = sort_keys(make_key_column(keys, cfg), cfg)
+        out = sort_keys(make_key_column(keys, cfg), cfg, method="radix")
         np.testing.assert_array_equal(
             out.to_numpy(), expected, err_msg=f"radix_bits={bits}"
         )
@@ -130,81 +135,15 @@ def test_ragged_sizes(n, rng):
     np.testing.assert_array_equal(out.to_numpy(), np.sort(keys))
 
 
-class TestFusedMethod:
-    """The all-Pallas fused pipeline (hist -> bucketize -> window-write)."""
-
-    @pytest.mark.parametrize("n", [16, 1000, 10_000])
-    def test_fused_matches_np(self, n, rng):
-        for name, keys in _keysets(rng, n).items():
-            out = sort_keys(make_key_column(keys, CFG), CFG, method="fused")
-            np.testing.assert_array_equal(
-                out.to_numpy(), np.sort(keys), err_msg=f"keyset={name} n={n}"
-            )
-
-    @pytest.mark.parametrize("n", [16, 5000])
-    def test_fused_pairs_stability(self, n, rng):
-        keys = rng.integers(0, 8, size=n, dtype=np.uint32)
-        s, perm = sort_pairs(make_key_column(keys, CFG), CFG, method="fused")
-        np.testing.assert_array_equal(s.to_numpy(), np.sort(keys))
-        np.testing.assert_array_equal(
-            perm.to_numpy(), np.argsort(keys, kind="stable").astype(np.uint32)
-        )
-
-    def test_fused_trivial_pass_skip_all_equal(self):
-        # All-equal keys make every digit globally constant: every pass is
-        # skipped as the identity (no overflow despite tile-long runs).
-        from gpuradixsort_tpu.config import PAD_INDEX
-        from gpuradixsort_tpu.core.table import pad_to_tile
-        from gpuradixsort_tpu.ops.sort import _fused_sort_padded
-
-        n = CFG.block
-        keys = jnp.full((n,), 7, jnp.uint32)
-        idx = pad_to_tile(jnp.arange(n, dtype=jnp.uint32), CFG, PAD_INDEX)
-        s, i, overflow = _fused_sort_padded(keys, idx, CFG, 2)
-        assert not bool(overflow)
-        np.testing.assert_array_equal(np.asarray(s)[:n], np.full(n, 7))
-        np.testing.assert_array_equal(np.asarray(i)[:n], np.arange(n))
-
-    def test_fused_overflow_fallback(self, rng):
-        # 95% of keys share one value: runs exceed the window, the pass
-        # overflows, and the lax.cond fallback must still produce the exact
-        # stable result.
-        from gpuradixsort_tpu.config import PAD_INDEX, PAD_KEY
-        from gpuradixsort_tpu.core.table import pad_to_tile
-        from gpuradixsort_tpu.ops.sort import _fused_sort_padded
-
-        n = CFG.block
-        keys_np = np.where(
-            rng.random(n) < 0.95,
-            np.uint32(5),
-            rng.integers(0, 16, n).astype(np.uint32),
-        )
-        keys = pad_to_tile(jnp.asarray(keys_np), CFG, PAD_KEY)
-        idx = pad_to_tile(jnp.arange(n, dtype=jnp.uint32), CFG, PAD_INDEX)
-        s, i, overflow = _fused_sort_padded(keys, idx, CFG, 2)
-        assert bool(overflow)
-        np.testing.assert_array_equal(np.asarray(s)[:n], np.sort(keys_np))
-        np.testing.assert_array_equal(
-            np.asarray(i)[:n], np.argsort(keys_np, kind="stable")
-        )
-
-    def test_fused_agrees_with_xla(self, rng):
-        n = 20_000
-        keys = rng.integers(0, 2**32, size=n, dtype=np.uint32)
-        a = sort_keys(make_key_column(keys, CFG), CFG, method="fused")
-        b = sort_keys(make_key_column(keys, CFG), CFG, method="xla")
-        np.testing.assert_array_equal(a.to_numpy(), b.to_numpy())
-
-
 class TestRadix8:
     """8-bit digits: wide (T, 256) histogram/offset tables, 4 passes."""
 
     def test_sort_matches_np(self, rng):
         cfg8 = EngineConfig(radix_bits=8)
-        assert cfg8.num_passes == 4 and cfg8.table_lanes == 256
+        assert cfg8.num_passes == 4 and cfg8.radix == 256
         n = 5000
         for name, keys in _keysets(rng, n).items():
-            out = sort_keys(make_key_column(keys, cfg8), cfg8)
+            out = sort_keys(make_key_column(keys, cfg8), cfg8, method="radix")
             np.testing.assert_array_equal(
                 out.to_numpy(), np.sort(keys), err_msg=f"keyset={name}"
             )
@@ -212,7 +151,7 @@ class TestRadix8:
     def test_pairs_stability(self, rng):
         cfg8 = EngineConfig(radix_bits=8)
         keys = rng.integers(0, 300, size=4000, dtype=np.uint32)
-        _, perm = sort_pairs(make_key_column(keys, cfg8), cfg8)
+        _, perm = sort_pairs(make_key_column(keys, cfg8), cfg8, method="radix")
         np.testing.assert_array_equal(
             perm.to_numpy(), np.argsort(keys, kind="stable").astype(np.uint32)
         )
@@ -220,27 +159,50 @@ class TestRadix8:
     def test_agrees_with_radix4(self, rng):
         keys = rng.integers(0, 2**32, size=3000, dtype=np.uint32)
         cfg8 = EngineConfig(radix_bits=8)
-        a = sort_keys(make_key_column(keys, cfg8), cfg8)
-        b = sort_keys(make_key_column(keys, CFG), CFG)
+        a = sort_keys(make_key_column(keys, cfg8), cfg8, method="radix")
+        b = sort_keys(make_key_column(keys, CFG), CFG, method="radix")
         np.testing.assert_array_equal(a.to_numpy(), b.to_numpy())
 
-    def test_fused_padded_input_no_overflow(self, rng):
-        # Regression: a ragged N leaves all-pad tail tiles whose pad runs
-        # span a whole tile (1024 > the old 256-element window), which
-        # silently forced EVERY padded sort onto the lax.sort fallback.
-        # With the default window equal to the tile size, overflow is
-        # structurally impossible and the real pipeline handles pads.
-        from gpuradixsort_tpu.config import PAD_INDEX, PAD_KEY
-        from gpuradixsort_tpu.core.table import pad_to_tile
-        from gpuradixsort_tpu.ops.sort import _fused_sort_padded
 
-        n = CFG.block + 17  # ragged: forces a mostly-pad trailing block
-        keys_np = rng.integers(0, 2**32, n, dtype=np.uint32)
-        keys = pad_to_tile(jnp.asarray(keys_np), CFG, PAD_KEY)
-        idx = pad_to_tile(jnp.arange(n, dtype=jnp.uint32), CFG, PAD_INDEX)
-        s, i, overflow = _fused_sort_padded(keys, idx, CFG)
-        assert not bool(overflow)
-        np.testing.assert_array_equal(np.asarray(s)[:n], np.sort(keys_np))
-        np.testing.assert_array_equal(
-            np.asarray(i)[:n], np.argsort(keys_np, kind="stable")
+KEYSETS = sorted(_keysets(np.random.default_rng(0), 1))
+
+
+@pytest.mark.parametrize("keyset", KEYSETS)
+@pytest.mark.parametrize("method", METHODS)
+def test_methods_match_numpy(method, keyset):
+    # Every remaining method, on every keyset class, for keys, pairs and the
+    # stable permutation; n is ragged so pad rows are in play.
+    n = 3001
+    keys = _keysets(np.random.default_rng(7), n)[keyset]
+    out = sort_keys(make_key_column(keys, CFG), CFG, method=method)
+    np.testing.assert_array_equal(out.to_numpy(), np.sort(keys))
+    s, perm = sort_pairs(make_key_column(keys, CFG), CFG, method=method)
+    np.testing.assert_array_equal(s.to_numpy(), np.sort(keys))
+    np.testing.assert_array_equal(
+        perm.to_numpy(), np.argsort(keys, kind="stable").astype(np.uint32)
+    )
+
+
+@pytest.mark.parametrize(
+    "method,resolved", [("auto", "xla"), ("radix", "radix"), ("xla", "xla")]
+)
+def test_resolve_method(method, resolved):
+    assert resolve_method(method) == resolved
+
+
+@pytest.mark.parametrize("method", ["fused", "bogus"])
+def test_unknown_method_raises(method):
+    # "fused" (the removed window-writer pipeline) is no longer a method.
+    from gpuradixsort.parallel.dist_sort import dist_sort_pairs
+    from gpuradixsort.parallel.mesh import make_row_mesh
+
+    keys = np.arange(100, dtype=np.uint32)
+    with pytest.raises(ValueError, match="unknown sort method"):
+        sort_keys(keys, CFG, method=method)
+    with pytest.raises(ValueError, match="unknown sort method"):
+        sort_pairs(keys, CFG, method=method)
+    with pytest.raises(ValueError, match="unknown sort method"):
+        dist_sort_pairs(
+            np.zeros(2 * CFG.block, np.uint32), make_row_mesh(2), CFG,
+            method=method,
         )
